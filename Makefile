@@ -20,5 +20,5 @@ bench:
 	$(PYTHON) bench.py
 
 clean:
-	rm -rf build mpi4py_fft_tpu/_hoststage*.so
+	rm -rf build mpi4py_fft_jax/_hoststage*.so
 	find . -name __pycache__ -type d -exec rm -rf {} +

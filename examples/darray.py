@@ -9,20 +9,9 @@ import os
 import sys
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), os.pardir))
 
-# Examples demonstrate multi-device decomposition; default to an 8-device
-# virtual CPU mesh when no multi-chip platform is configured.  Set
-# MPI4PY_FFT_TPU_EXAMPLE_PLATFORM=native to use the ambient JAX platform.
-if os.environ.get('MPI4PY_FFT_TPU_EXAMPLE_PLATFORM', 'cpu8') == 'cpu8':
-    _fl = os.environ.get('XLA_FLAGS', '')
-    if 'xla_force_host_platform_device_count' not in _fl:
-        os.environ['XLA_FLAGS'] = (
-            _fl + ' --xla_force_host_platform_device_count=8').strip()
-    import jax
-    jax.config.update('jax_platforms', 'cpu')
-
 import numpy as np
 
-from mpi4py_fft_tpu import DistArray, newDistArray, PFFT
+from mpi4py_fft_jax import DistArray, newDistArray, PFFT
 
 N = (16, 14, 12)
 z0 = DistArray(N, dtype=float, alignment=0)

@@ -7,7 +7,7 @@
  *  - the MPI subarray-datatype pack/unpack engine used by
  *    mpi4py_fft/pencil.py:12-29 via Alltoallw (here: an explicit strided
  *    block copier used for host-side staging of pencil blocks in IO and
- *    checkpoint paths; the device-side transpose runs on ICI via XLA and
+ *    checkpoint paths; the device-side transpose runs as an XLA collective and
  *    never touches this code).
  *
  * Exposed as the `_hoststage` CPython extension:
@@ -37,7 +37,7 @@ void aligned_capsule_destructor(PyObject *capsule) {
 
 PyObject *aligned_empty(PyObject *, PyObject *args) {
     Py_ssize_t nbytes;
-    Py_ssize_t alignment = 128;  /* a TPU lane row of f32 */
+    Py_ssize_t alignment = 128;  /* 32 f32 elements */
     if (!PyArg_ParseTuple(args, "n|n", &nbytes, &alignment)) return nullptr;
     if (alignment < 8 || (alignment & (alignment - 1))) {
         PyErr_SetString(PyExc_ValueError, "alignment must be a power of two >= 8");

@@ -7,21 +7,14 @@ Configs (BASELINE.md):
   4. DCT-II/DST-II 3-D 256^3 pencil
   5. spectral DNS solver (64^3 quick / 512^3 full via DNS_N env)
 
-Platform: set CONFIG_PLATFORM=cpu8 (default, virtual mesh) or native.
+Runs on the ambient JAX platform (for the 8-device virtual CPU mesh set
+JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8).
 """
 import os
 import sys
 import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), os.pardir))
-
-if os.environ.get('CONFIG_PLATFORM', 'cpu8') == 'cpu8':
-    fl = os.environ.get('XLA_FLAGS', '')
-    if 'xla_force_host_platform_device_count' not in fl:
-        os.environ['XLA_FLAGS'] = (
-            fl + ' --xla_force_host_platform_device_count=8').strip()
-    import jax
-    jax.config.update('jax_platforms', 'cpu')
 
 import numpy as np
 
@@ -33,7 +26,7 @@ def timed(tag, fn):
 
 
 def config1():
-    from mpi4py_fft_tpu import fftw
+    from mpi4py_fft_jax import fftw
     rng = np.random.default_rng(0)
     A = fftw.aligned((128, 128), dtype='D')
     plan = fftw.fftn(A, axes=(0, 1))
@@ -48,7 +41,7 @@ def config1():
 
 
 def config2():
-    from mpi4py_fft_tpu import PFFT, newDistArray
+    from mpi4py_fft_jax import PFFT, newDistArray
     n = int(os.environ.get('C2_N', 256))
     fft = PFFT(None, (n, n, n), grid=(-1,), dtype='D')
     rng = np.random.default_rng(1)
@@ -62,7 +55,7 @@ def config2():
 
 
 def config3():
-    from mpi4py_fft_tpu import PFFT, newDistArray
+    from mpi4py_fft_jax import PFFT, newDistArray
     n = int(os.environ.get('C3_N', 512))
     fft = PFFT(None, (n, n, n), padding=[1.5, 1.5, 1.5], dtype='d')
     rng = np.random.default_rng(2)
@@ -78,7 +71,7 @@ def config3():
 
 def config4():
     import functools
-    from mpi4py_fft_tpu import PFFT, newDistArray, fftw
+    from mpi4py_fft_jax import PFFT, newDistArray, fftw
     n = int(os.environ.get('C4_N', 256))
     dct2 = functools.partial(fftw.dctn, type=2)
     idct2 = functools.partial(fftw.idctn, type=2)
@@ -98,7 +91,6 @@ def config4():
 def config5():
     sys.path.insert(0, os.path.join(os.path.dirname(__file__),
                                     os.pardir, 'examples'))
-    os.environ['MPI4PY_FFT_TPU_EXAMPLE_PLATFORM'] = 'native'
     import spectral_dns_solver as dns
     n = int(os.environ.get('DNS_N', 64))
     k = dns.run(N=(n, n, n), verbose=False)

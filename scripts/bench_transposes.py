@@ -2,9 +2,9 @@
 
 BASELINE.json's metric includes "transposes/s at 1 chip / 1 host / N
 hosts".  This harness times a jitted chain of pencil rotations (A->B->A)
-on whatever mesh is available: the 8-device virtual CPU mesh by default
-(set CONFIG_PLATFORM=native for real chips; on a 1-chip TPU the rotation
-is a local relayout).
+on the ambient JAX platform's devices (for the 8-device virtual CPU mesh
+set JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8;
+on one device the rotation is a local relayout).
 """
 import os
 import sys
@@ -12,21 +12,13 @@ import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), os.pardir))
 
-if os.environ.get('CONFIG_PLATFORM', 'cpu8') == 'cpu8':
-    fl = os.environ.get('XLA_FLAGS', '')
-    if 'xla_force_host_platform_device_count' not in fl:
-        os.environ['XLA_FLAGS'] = (
-            fl + ' --xla_force_host_platform_device_count=8').strip()
-    import jax
-    jax.config.update('jax_platforms', 'cpu')
-
 import numpy as np
 
 
 def main():
     import jax
     import jax.numpy as jnp
-    from mpi4py_fft_tpu.parallel import Subcomm, Pencil
+    from mpi4py_fft_jax.parallel import Subcomm, Pencil
 
     n = int(os.environ.get('TRANSPOSE_N', 256))
     reps = int(os.environ.get('TRANSPOSE_REPS', 10))
@@ -53,7 +45,7 @@ def main():
     t0 = time.perf_counter()
     for _ in range(reps):
         y = rotate(x)
-    float(np.asarray(jax.device_get(y[0, 0, :1])))
+    y.block_until_ready()
     dt = (time.perf_counter() - t0) / (reps * chain)
     gb = n ** 3 * 4 / 1e9
     print(f"pencil rotation {n}^3 f32 over {len(jax.devices())} devices: "

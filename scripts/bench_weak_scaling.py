@@ -1,14 +1,12 @@
 """Weak-scaling harness: multi-process pencil transposes.
 
-The BASELINE north-star demands >=70% weak-scaling efficiency host->pod.
-A pod is not reachable from this environment, so this script IS the
-measurement protocol, exercised end-to-end on a multi-process CPU mesh
-(P jax.distributed processes x D virtual devices each — the analogue of
-the reference's oversubscribed ``mpiexec`` runs): run the same timed
-transpose at 1 process and at P processes with a CONSTANT per-process
-data volume, and report the efficiency t_1 / t_P.  On a real pod the
-identical program measures ICI/DCN edges instead of TCP; only the
-launcher (one process per host, D = local chip count) changes.
+This script is a weak-scaling measurement protocol, exercised end-to-end
+on a multi-process CPU mesh (P jax.distributed processes x D virtual
+devices each — the analogue of the reference's oversubscribed ``mpiexec``
+runs): run the same timed transpose at 1 process and at P processes with
+a CONSTANT per-process data volume, and report the efficiency t_1 / t_P.
+With one process per GPU the identical program measures NVLink instead
+of TCP; only the launcher changes.
 
 The timed operation is the production data-movement path: the pencil
 rotation pencil(axis=2) <-> pencil(axis=0) over the FULL device mesh —
@@ -48,14 +46,13 @@ def _worker(pid, nprocs, port, ndev_local, n, reps):
     import jax
     jax.config.update("jax_platforms", "cpu")
     if nprocs > 1:
-        from mpi4py_fft_tpu.parallel import multihost
+        from mpi4py_fft_jax.parallel import multihost
         multihost.initialize(coordinator_address=f"localhost:{port}",
                              num_processes=nprocs, process_id=pid)
     import jax.numpy as jnp
     import numpy as np
     from jax import lax
-    from mpi4py_fft_tpu.parallel import Subcomm
-    from mpi4py_fft_tpu.parallel.mpifft import shmap
+    from mpi4py_fft_jax.parallel import Subcomm
 
     ndev = len(jax.devices())
     assert ndev == nprocs * ndev_local, (ndev, nprocs, ndev_local)
@@ -79,8 +76,8 @@ def _worker(pid, nprocs, port, ndev_local, n, reps):
 
     from jax.sharding import PartitionSpec as P
     spec = P(sub[0].name, None, None)           # pencil A layout (axis 0
-    f = jax.jit(shmap(rot, mesh=sub.mesh,       # sharded, axis 2 whole)
-                      in_specs=(spec,), out_specs=spec))
+    f = jax.jit(jax.shard_map(rot, mesh=sub.mesh,   # sharded, axis 2
+                              in_specs=(spec,), out_specs=spec))  # whole)
     x = jax.device_put(
         jnp.zeros(shape, jnp.float32),
         jax.sharding.NamedSharding(sub.mesh, spec))

@@ -8,18 +8,18 @@ native runtime piece is the host staging module (native/hoststage.cpp).
 from setuptools import setup, Extension, find_packages
 
 ext = Extension(
-    "mpi4py_fft_tpu._hoststage",
+    "mpi4py_fft_jax._hoststage",
     sources=["native/hoststage.cpp"],
     extra_compile_args=["-O3", "-std=c++17"],
     language="c++",
 )
 
 setup(
-    name="mpi4py_fft_tpu",
+    name="mpi4py_fft_jax",
     version="0.1.0",
-    description="TPU-native distributed FFT framework "
-                "(capabilities of mpi4py-fft on JAX/XLA/Pallas)",
-    packages=find_packages(include=["mpi4py_fft_tpu", "mpi4py_fft_tpu.*"]),
+    description="Distributed FFT framework "
+                "(capabilities of mpi4py-fft on JAX/XLA)",
+    packages=find_packages(include=["mpi4py_fft_jax", "mpi4py_fft_jax.*"]),
     ext_modules=[ext],
     python_requires=">=3.10",
 )

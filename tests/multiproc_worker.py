@@ -29,12 +29,12 @@ os.environ["JAX_PLATFORMS"] = "cpu"
 import jax                                                    # noqa: E402
 jax.config.update("jax_platforms", "cpu")
 
-from mpi4py_fft_tpu.parallel import multihost                 # noqa: E402
+from mpi4py_fft_jax.parallel import multihost                 # noqa: E402
 multihost.initialize(coordinator_address=f"localhost:{PORT}",
                      num_processes=NPROCS, process_id=PROC)
 
 import numpy as np                                            # noqa: E402
-from mpi4py_fft_tpu import PFFT, newDistArray, DistArray      # noqa: E402
+from mpi4py_fft_jax import PFFT, newDistArray, DistArray      # noqa: E402
 
 assert multihost.is_multihost()
 assert multihost.process_count() == NPROCS
@@ -80,7 +80,7 @@ check(np.allclose(np.asarray(uuj), Xu, rtol=0, atol=2e-10),
 
 # ---- PlanarPFFT shard_map executor across processes -----------------------
 # explicit tiled lax.all_to_all transposes spanning process boundaries
-from mpi4py_fft_tpu.parallel.planar import PlanarPFFT      # noqa: E402
+from mpi4py_fft_jax.parallel.planar import PlanarPFFT      # noqa: E402
 pp = PlanarPFFT(None, (16, 16, 16), dtype='D', executor='shard_map')
 assert pp.executor == 'shard_map'
 Xp = (rng.random((16, 16, 16)) + 1j * rng.random((16, 16, 16)))
@@ -88,7 +88,7 @@ pin = jax.device_put(
     np.ascontiguousarray(np.stack([Xp.real, Xp.imag])),
     pp.pencil[0].boundary_sharding(1))
 phat = pp.forward(pin)
-from mpi4py_fft_tpu.parallel.mpifft import _host_value     # noqa: E402
+from mpi4py_fft_jax.parallel.mpifft import _host_value     # noqa: E402
 ph = _host_value(phat)
 refp = np.fft.fftn(Xp) / Xp.size
 check(np.allclose(ph[0] + 1j * ph[1], refp, rtol=0, atol=2e-10),
@@ -118,11 +118,11 @@ w.read(h5, name="u", step=0)
 check(np.allclose(np.asarray(w), X), "HDF5 reshard-on-load")
 
 # serialized turn-taking fallback must produce byte-identical data
-os.environ['MPI4PY_FFT_TPU_H5_MODE'] = 'serial'
+os.environ['MPI4PY_FFT_JAX_H5_MODE'] = 'serial'
 h5s = os.path.join(TMP, "mp_serial.h5")
 u.write(h5s, name="u", step=0)
 multihost.sync_global_devices("after-write-serial")
-del os.environ['MPI4PY_FFT_TPU_H5_MODE']
+del os.environ['MPI4PY_FFT_JAX_H5_MODE']
 if PROC == 0:
     import h5py
     with h5py.File(h5, 'r') as fv, h5py.File(h5s, 'r') as fs:
@@ -135,7 +135,7 @@ multihost.sync_global_devices("after-compare")
 # repack=True: sidecars streamed in parallel, then drained into ONE
 # self-contained contiguous file (the reference's single mpio artifact,
 # io/h5py_file.py:33,72) and deleted
-from mpi4py_fft_tpu import HDF5File                         # noqa: E402
+from mpi4py_fft_jax import HDF5File                         # noqa: E402
 h5r = os.path.join(TMP, "mp_repack.h5")
 frp = HDF5File(h5r, mode='w', domain=((0, 1),) * 3, repack=True)
 frp.write(0, {"u": [u]})

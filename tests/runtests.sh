@@ -18,23 +18,22 @@ run () {
 
 # serial-layer tests (device count irrelevant)
 run 1 tests/test_fftw.py tests/test_libfft.py tests/test_speed.py \
-      tests/test_butterfly.py tests/test_oop3d.py tests/test_ds.py \
       tests/test_native.py
 
 # distributed layers at 2, 4 and 8 devices (≙ mpiexec -n 2 / 4 / 8)
 for n in 2 4 8; do
   run $n tests/test_pencil.py tests/test_darray.py tests/test_planar.py
 done
-run 8 tests/test_mpifft.py tests/test_io.py tests/test_pallas_fft.py \
+run 8 tests/test_mpifft.py tests/test_io.py tests/test_local_stage.py \
       tests/test_shmap_executor.py tests/test_overlap.py \
       tests/test_profiling.py
 
 # the gspmd executor is a SUPPORTED alternative to the shard_map default
-# (PFFT(executor='gspmd') / MPI4PY_FFT_TPU_EXECUTOR=gspmd): re-run the
+# (PFFT(executor='gspmd') / MPI4PY_FFT_JAX_EXECUTOR=gspmd): re-run the
 # full PFFT + planar matrices with every 'auto' selection forced to it,
 # so it gets the same 8-device coverage as the production path
 echo "=== devices=8 (executor=gspmd sweep) ==="
-MPI4PY_FFT_TPU_EXECUTOR=gspmd \
+MPI4PY_FFT_JAX_EXECUTOR=gspmd \
   XLA_FLAGS="--xla_force_host_platform_device_count=8" \
   python -m pytest tests/test_mpifft.py tests/test_planar.py \
   tests/test_io.py -q

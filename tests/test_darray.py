@@ -8,8 +8,8 @@ norm, and newDistArray view/rank matrix with PFFT-from-darray.
 import numpy as np
 import jax
 
-from mpi4py_fft_tpu import DistArray, newDistArray, PFFT
-from mpi4py_fft_tpu.parallel import Subcomm
+from mpi4py_fft_jax import DistArray, newDistArray, PFFT
+from mpi4py_fft_jax.parallel import Subcomm
 
 NDEV = None
 
@@ -130,8 +130,8 @@ def test_redistribute_values():
 def _assert_truly_distributed(a, X):
     """Every device must hold EXACTLY its reference block of ``X``
     (blockdist semantics, reference pencil.py:5-9) — uneven extents are
-    padded at rest, never silently replicated (VERDICT r1 missing #3)."""
-    from mpi4py_fft_tpu.parallel.pencil import blockdist
+    padded at rest, never silently replicated."""
+    from mpi4py_fft_jax.parallel.pencil import blockdist
     p = a.pencil
     devlist = list(p.mesh.devices.flat)
     rank = a.rank

@@ -4,7 +4,7 @@ Port of the reference L1 test strategy (reference: tests/test_fftw.py):
 exhaustive sweep over dims x sizes x precisions x axis windows, round-trips
 for r2c/c2r, c2c, hfft/ihfft, r2r types 1-4 vs scipy, random mixed r2r kinds
 vs scipy composed per-axis, and the wisdom surface.  The 'g' (long double)
-tier does not exist on TPU and is skipped via fftlib membership, exactly how
+tier does not exist in XLA and is skipped via fftlib membership, exactly how
 the reference skips unavailable precisions (test_fftw.py:37-40).
 """
 from itertools import product
@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import scipy.fft
 
-from mpi4py_fft_tpu import fftw
+from mpi4py_fft_jax import fftw
 
 abstol = dict(f=5e-4, d=1e-12)
 
@@ -161,7 +161,7 @@ def test_wisdom(tmp_path):
     """Wisdom == persistent XLA compilation cache
     (reference: tests/test_fftw.py:140-144).  Asserts the cache directory
     actually gains entries on compile and that a fresh process reuses
-    them (cache-hit logging) — VERDICT r1 weak #4."""
+    them (cache-hit logging)."""
     import os
     import subprocess
     import sys
@@ -172,7 +172,7 @@ def test_wisdom(tmp_path):
         "os.environ['XLA_FLAGS']='--xla_force_host_platform_device_count=8';"
         "os.environ['JAX_PLATFORMS']='cpu';"
         "import jax; jax.config.update('jax_platforms','cpu');"
-        "from mpi4py_fft_tpu import fftw;"
+        "from mpi4py_fft_jax import fftw;"
         "fftw.import_wisdom({w!r});"
         "a = fftw.aligned((8, 8), dtype='d');"
         "fftw.rfftn(a)()"
@@ -183,7 +183,7 @@ def test_wisdom(tmp_path):
     a = fftw.aligned((8, 8), dtype='d')
     plan = fftw.rfftn(a)
     plan()  # compile -> populates cache dir
-    from mpi4py_fft_tpu.ops.plan import _wisdom_dir
+    from mpi4py_fft_jax.ops.plan import _wisdom_dir
     cache_dir = _wisdom_dir(w)
     entries = os.listdir(cache_dir)
     assert len(entries) > 0, "wisdom export produced no cache entries"
@@ -222,13 +222,13 @@ def test_r2r_fft_impl():
     """FFT-backed r2r — ALL eight DCT/DST kinds at even AND odd N
     (DCT-I via the 2(N-1)-point even extension, DST-I via 2(N+1), the
     type-IV pair via half-sample-shift twiddles + parallel prefix, odd-N
-    II/III via the generalized Makhoul permutation) — vs the dense MXU
+    II/III via the generalized Makhoul permutation) — vs the dense
     basis and scipy, both precisions (reference: the guru planner covers
     every kind in O(N log N), fftw/fftw_planxfftn.c:60-70; tolerances
     tests/test_fftw.py:15)."""
     import jax.numpy as jnp
-    from mpi4py_fft_tpu.ops import core
-    from mpi4py_fft_tpu.ops.kinds import (
+    from mpi4py_fft_jax.ops import core
+    from mpi4py_fft_jax.ops.kinds import (
         FFTW_REDFT00, FFTW_REDFT10, FFTW_REDFT01, FFTW_REDFT11,
         FFTW_RODFT00, FFTW_RODFT10, FFTW_RODFT01, FFTW_RODFT11)
     kind2scipy = {FFTW_REDFT00: ('dct', 1), FFTW_REDFT10: ('dct', 2),
@@ -257,7 +257,7 @@ def test_r2r_fft_impl():
                         (N, kind, dt)
         # DHT has no scipy reference: cross-check the FFT path (the
         # default engine at N >= 16) against the dense basis
-        from mpi4py_fft_tpu.ops.kinds import FFTW_DHT
+        from mpi4py_fft_jax.ops.kinds import FFTW_DHT
         for N in (8, 13, 20, 31, 64):
             x = rng.standard_normal((3, N, 4))
             core.set_r2r_impl('fft')

@@ -10,7 +10,7 @@ import os
 import numpy as np
 import pytest
 
-from mpi4py_fft_tpu import DistArray, HDF5File, NCFile, generate_xdmf
+from mpi4py_fft_jax import DistArray, HDF5File, NCFile, generate_xdmf
 
 try:
     import h5py  # noqa: F401
@@ -137,7 +137,7 @@ except ImportError:
 def test_nc4_write_read(tmp_path):
     """Write+read through the real netCDF4 branch (not the scipy
     fallback), including reshard-on-load."""
-    from mpi4py_fft_tpu.io import nc_file
+    from mpi4py_fft_jax.io import nc_file
     assert nc_file._HAVE_NC4
     rng = np.random.default_rng(7)
     fname = str(tmp_path / "nc4.nc")
@@ -155,7 +155,7 @@ def test_nc4_reads_scipy_written(tmp_path, monkeypatch):
     """Interop claim (io/nc_file.py module docs): the scipy NetCDF-3
     fallback writes files the netCDF4 readers (and therefore the
     reference's parallel-netCDF4 tooling) can read."""
-    from mpi4py_fft_tpu.io import nc_file
+    from mpi4py_fft_jax.io import nc_file
     rng = np.random.default_rng(8)
     fname = str(tmp_path / "interop.nc")
     u = DistArray(N, dtype='d', alignment=1)
@@ -184,9 +184,9 @@ def test_nc3_format_conformance(tmp_path, monkeypatch):
     """Validate the scipy-fallback writer's BYTES against the NetCDF
     classic format spec with an independent from-scratch parser
     (tests/nc3_parser.py) — the local stand-in for the CI-only real
-    netCDF4 interop branch (VERDICT r3 weak #8: keep the interop claim
+    netCDF4 interop branch (keeps the interop claim
     honest outside CI)."""
-    from mpi4py_fft_tpu.io import nc_file
+    from mpi4py_fft_jax.io import nc_file
     from nc3_parser import parse
     monkeypatch.setattr(nc_file, '_HAVE_NC4', False)
     rng = np.random.default_rng(11)

@@ -10,12 +10,12 @@ import functools
 import numpy as np
 import pytest
 
-from mpi4py_fft_tpu.libfft import FFT
-from mpi4py_fft_tpu import fftw
+from mpi4py_fft_jax.libfft import FFT
+from mpi4py_fft_jax import fftw
 
 abstol = dict(f=5e-5, d=1e-13)
 
-# 'jax' is the native XLA/MXU path; numpy/scipy are host cross-checks
+# 'jax' is the native XLA path; numpy/scipy are host cross-checks
 # (role of the reference's 5-backend list, tests/test_libfft.py:10-15)
 try:
     import torch  # noqa: F401

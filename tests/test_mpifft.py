@@ -12,8 +12,8 @@ from itertools import product
 import numpy as np
 import pytest
 
-from mpi4py_fft_tpu import PFFT, newDistArray, fftw
-from mpi4py_fft_tpu.parallel import Subcomm
+from mpi4py_fft_jax import PFFT, newDistArray, fftw
+from mpi4py_fft_jax.parallel import Subcomm
 
 abstol = dict(f=0.1, d=2e-10)
 
@@ -221,9 +221,8 @@ def test_mpifft_r2r():
 
 def _assert_complex_free(fft):
     """Lower both pipeline directions and assert no complex-typed HLO
-    (the target TPU platform rejects complex HLO outright; the jax
-    backend therefore computes in planar form, complex only at the host
-    boundary — see parallel/mpifft.py Transform)."""
+    (property of the matmul engine, which computes every stage in planar
+    real arithmetic — see ops/matfft.py)."""
     import jax
     for tr in (fft.forward, fft.backward):
         rdtype = np.zeros(0, dtype=tr._in_dtype).real.dtype
@@ -233,11 +232,11 @@ def _assert_complex_free(fft):
         assert 'complex<' not in txt, "complex HLO leaked into the pipeline"
 
 
-def test_mpifft_complex_free_hlo():
-    """Every API feature of PFFT(backend='jax') — c2c, r2c, grids,
-    collapse groups, padding, custom r2r transforms — must lower to
-    complex-free HLO so the one orchestrator runs on the target chip
-    (role of the reference's single FFTW executor, mpifft.py:202-347)."""
+def test_mpifft_complex_free_hlo(matmul_engine):
+    """On the matmul engine every API feature of PFFT(backend='jax') —
+    c2c, r2c, grids, collapse groups, padding, custom r2r transforms —
+    lowers to complex-free HLO (role of the reference's single FFTW
+    executor, mpifft.py:202-347)."""
     dctn = functools.partial(fftw.dctn, type=3)
     idctn = functools.partial(fftw.idctn, type=3)
     configs = [

@@ -1,7 +1,7 @@
 """Multi-process distributed execution tests.
 
 Launches real ``jax.distributed`` process groups (2 and 4 workers on
-localhost) running tests/multiproc_worker.py — the TPU-native analogue of
+localhost) running tests/multiproc_worker.py — the JAX analogue of
 the reference's ``mpiexec -n 2/4`` distributed test strategy
 (reference: tests/runtests.sh:14-37).  Worker processes cannot address each
 other's shards, so this exercises the true multi-process code paths:

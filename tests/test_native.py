@@ -9,9 +9,9 @@ fallback on the same inputs.
 import numpy as np
 import pytest
 
-from mpi4py_fft_tpu import DistArray
-from mpi4py_fft_tpu.utils import aligned, get_alignment
-from mpi4py_fft_tpu.utils import native
+from mpi4py_fft_jax import DistArray
+from mpi4py_fft_jax.utils import aligned, get_alignment
+from mpi4py_fft_jax.utils import native
 
 
 requires_native = pytest.mark.skipif(

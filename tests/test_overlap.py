@@ -2,8 +2,7 @@
 
 The executors chunk each all_to_all+stage step along an uninvolved axis
 so XLA's latency-hiding scheduler can overlap chunk k's transform with
-chunk k+1's transfer (the north-star's "overlap butterfly compute with
-ICI traffic" clause; the reference's hot loop is strictly sequential,
+chunk k+1's transfer (the reference's hot loop is strictly sequential,
 mpifft.py:68-72 + pencil.py:182-183).  Chunking is a pure
 reassociation, so results must match the unchunked executor exactly.
 """
@@ -13,9 +12,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from mpi4py_fft_tpu.parallel import overlap
-from mpi4py_fft_tpu.parallel.mpifft import PFFT
-from mpi4py_fft_tpu.parallel.planar import PlanarPFFT
+from mpi4py_fft_jax.parallel import overlap
+from mpi4py_fft_jax.parallel.mpifft import PFFT
+from mpi4py_fft_jax.parallel.planar import PlanarPFFT
 
 
 def _ndev():

@@ -12,14 +12,14 @@ from itertools import product
 import numpy as np
 import jax
 
-from mpi4py_fft_tpu.parallel import Subcomm, Pencil
-from mpi4py_fft_tpu.parallel.pencil import blockdist
+from mpi4py_fft_jax.parallel import Subcomm, Pencil
+from mpi4py_fft_jax.parallel.pencil import blockdist
 
 
 def _check_shards(arr, pencil, X):
     """Verify each device's shard CONTENT is exactly its pencil block of
     the global array ``X``: shard.data == X[pencil.local_slice(dev)]
-    (the data movement really happened — VERDICT r1 weak #4)."""
+    (the data movement really happened)."""
     full = np.asarray(X)
     devlist = list(pencil.mesh.devices.flat)
     checked = 0

@@ -14,9 +14,9 @@ import scipy.fft as sfft
 
 import jax
 
-from mpi4py_fft_tpu import fftw
-from mpi4py_fft_tpu.libfft import FFT
-from mpi4py_fft_tpu.ops import core
+from mpi4py_fft_jax import fftw
+from mpi4py_fft_jax.libfft import FFT
+from mpi4py_fft_jax.ops import core
 
 N = (64, 64, 64)
 AXIS_SPECS = ((1, 2), 0, 1, 2)          # reference: tests/test_speed.py:36
